@@ -27,6 +27,7 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -338,11 +339,25 @@ def _leaves(tree):
         yield tree
 
 
-def _captured_step(params, cfg, cap, cache, plain=False):
+def _captured_step(params, cfg, cap, cache):
     logits, _ = E.decode_step_compressed(
         params, cap["token"], cache, cap["pos"], cfg, flush_page=cap["flush_page"],
-        attend_blocks=cap["attend_blocks"], plain=plain)
+        attend_blocks=cap["attend_blocks"])
     return logits
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Bind both kernel wrappers to their plain PyTorch versions for the
+    duration: the path looks the wrappers up at call time, so a step run
+    inside computes on the card without launching a kernel.  The oracle of
+    the crosscheck; the port itself has no such switch."""
+    saved = fc.compress_plane, fa.attend_paged
+    fc.compress_plane, fa.attend_paged = reference.compress_plane, fa_ref.attend_paged
+    try:
+        yield
+    finally:
+        fc.compress_plane, fa.attend_paged = saved
 
 
 def phase_crosscheck(eng, params, cfg):
@@ -359,8 +374,15 @@ def phase_crosscheck(eng, params, cfg):
     limits = {"bf16": 0.25, "f32": 1e-2}  # max logit |delta| (logit scale ~5)
     for label in ("bf16", "f32"):
         p = params if label == "bf16" else _cast(params, torch.float32)
-        a, b = (_captured_step(p, cfg, cap, cap["cache"].clone(), plain)[live]
-                for plain in (False, True))
+        fc.counter.reset()
+        fa.counter.reset()
+        a = _captured_step(p, cfg, cap, cap["cache"].clone())[live]
+        kernel_launches = (fc.counter.count, fa.counter.count)
+        with plain_versions():
+            b = _captured_step(p, cfg, cap, cap["cache"].clone())[live]
+        if min(kernel_launches) <= 0 or (fc.counter.count, fa.counter.count) != kernel_launches:
+            raise AssertionError(f"{label} crosscheck: kernel step launched {kernel_launches}, "
+                                 f"plain step must launch none")
         del p
         torch.cuda.synchronize()
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):

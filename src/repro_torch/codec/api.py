@@ -27,21 +27,15 @@ def tile_bytes(keep: int) -> int:
     return keep * keep + TILE_HEADER_BYTES
 
 
-def compress_blocks(x: torch.Tensor, keep: int, *, plain: bool = False):
+def compress_blocks(x: torch.Tensor, keep: int):
     """(..., R, C) with R % 8 == C % 8 == 0 -> fused DCT+truncate+int8.
 
     Returns (coefs (..., R/8, C/8, k, k) int8, scale (..., R/8, C/8) f32).
-    `plain=True` computes with the plain PyTorch version on the tensor's own
-    device — the oracle a kernel run is held against.
     """
     *lead, r, c = x.shape
     if r % BLOCK or c % BLOCK:
         raise ValueError(f"plane dims must be multiples of {BLOCK}, got {(r, c)}")
-    plane = x.reshape(-1, c)
-    if plain:
-        q, scale = reference.compress_plane(plane, keep)
-    else:
-        q, scale = fc_kernel.compress_plane(plane.contiguous(), keep)
+    q, scale = fc_kernel.compress_plane(x.reshape(-1, c).contiguous(), keep)
     nh, nw = r // BLOCK, c // BLOCK
     return (q.reshape(*lead, nh, nw, keep, keep),
             scale.reshape(*lead, nh, nw))

@@ -204,8 +204,8 @@ def flush_targets(pos: torch.Tensor, flush_page: torch.Tensor, n_pages: int):
 
 
 def update_layer(layer_cache: dict[str, torch.Tensor], k_new, v_new, pos,
-                 keep: int, *, flush=None, codec: str = "dct",
-                 plain: bool = False) -> dict[str, torch.Tensor]:
+                 keep: int, *, flush=None,
+                 codec: str = "dct") -> dict[str, torch.Tensor]:
     """Write each row's new token into its own tail slot; flush the rows in
     `flush` (see `flush_targets`) into their pages.  In place.
 
@@ -228,7 +228,7 @@ def update_layer(layer_cache: dict[str, torch.Tensor], k_new, v_new, pos,
     fr, pages = flush
     # (2, n, 8, Hkv, hd) -> (2, n, Hkv, 8, hd) planes: one block per head
     tails = torch.stack([tk[fr], tv[fr]]).transpose(2, 3)
-    q, sc = codec_api.compress_blocks(tails, keep, plain=plain)
+    q, sc = codec_api.compress_blocks(tails, keep)
     for i, sfx in enumerate(("_k", "_v")):
         for name, plane in fam.pack(q[i][:, :, 0], sc[i][:, :, 0], keep).items():
             dst = layer_cache[name + sfx]
@@ -332,27 +332,12 @@ def table_view(block_table: torch.Tensor, attend_blocks: int | None = None):
     return block_table[:, :attend_blocks]
 
 
-def attend_auto(q, layer_cache, pos, keep: int, *, block_table,
-                codec: str = "dct", plain: bool = False) -> torch.Tensor:
-    """Decode attention over the paged pool: the fused kernel wrapper for
-    the dct family (kernel on a CUDA tensor, its plain version on a CPU
-    tensor or with `plain=True`), the plain scan for families the kernel
-    does not read."""
-    if families_lib.get_family(codec).supports_fused_attend:
-        from repro_torch.kernels.fused_attend import ops as fa_ops
-
-        return fa_ops.attend_with_tail(q, layer_cache, pos,
-                                       block_table=block_table, plain=plain)
-    return attend_compressed(q, layer_cache, pos, keep,
-                             block_table=block_table, codec=codec)
-
-
 # ---------------------------------------------------------------------------
 # Bulk prefill compression
 # ---------------------------------------------------------------------------
 
-def prefill_compress(k, v, keep: int, pos=None, codec: str = "dct", *,
-                     plain: bool = False) -> dict[str, torch.Tensor]:
+def prefill_compress(k, v, keep: int, pos=None,
+                     codec: str = "dct") -> dict[str, torch.Tensor]:
     """Compress a full prompt's K/V into cache layout.
 
     k, v: (..., B, S, Hkv, hd), S % 8 == 0 — any leading dims (the engine
@@ -370,8 +355,7 @@ def prefill_compress(k, v, keep: int, pos=None, codec: str = "dct", *,
     *lead, b, s, hkv, hd = k.shape
     pos = as_pos_vec(s if pos is None else pos, b, k.device).long()
     # one call for K and V: (2, ..., B, Hkv, S, hd) planes
-    q, sc = codec_api.compress_blocks(torch.stack([k, v]).transpose(-3, -2), keep,
-                                      plain=plain)
+    q, sc = codec_api.compress_blocks(torch.stack([k, v]).transpose(-3, -2), keep)
     idx = (pos[:, None] // BLOCK) * BLOCK + torch.arange(BLOCK, device=k.device)
     idx = torch.clamp(idx, max=s - 1)  # (B, 8)
     gather = lambda x: x[..., torch.arange(b, device=k.device)[:, None], idx, :, :]

@@ -83,9 +83,18 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Final norm + vocabulary projection -> f32 logits."""
+    """Final norm + vocabulary projection -> f32 logits.
+
+    Low-precision weights on the card go through one GEMM of the weight's
+    own dtype with f32 accumulation and f32 output (the JAX package's
+    `preferred_element_type=float32`): the vocabulary matrix is never cast.
+    """
     h = L.rmsnorm(params["final_norm"], x)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if w.is_cuda and w.dtype != torch.float32:
+        out = torch.mm(h.reshape(-1, h.shape[-1]).to(w.dtype), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*h.shape[:-1], w.shape[-1])
     return h.float() @ w.float()
 
 

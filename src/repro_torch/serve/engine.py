@@ -33,6 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.codec import plan as plan_lib
 from repro_torch.core import kv_cache as kvc
+from repro_torch.kernels.fused_attend import ops as fa_ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve import pipeline as pl
@@ -44,7 +45,7 @@ from repro_torch.serve import pipeline as pl
 
 def prefill_compressed_paged(params, tokens: torch.Tensor, cfg, *, plan=None,
                              keep: int = 4, lengths=None,
-                             dtype=torch.bfloat16, plain: bool = False):
+                             dtype=torch.bfloat16):
     """Prefill one admission bucket into paged slot-update form.
 
     tokens (R, bucket) right-padded, bucket % 8 == 0; `lengths[r]` is row
@@ -65,7 +66,7 @@ def prefill_compressed_paged(params, tokens: torch.Tensor, cfg, *, plan=None,
     update = []
     for start, stop, pol in plan.segments(cfg.n_layers):
         comp = kvc.prefill_compress(k[start:stop], v[start:stop], pol.kv_keep,
-                                    pos=lengths, codec=pol.codec, plain=plain)
+                                    pos=lengths, codec=pol.codec)
         comp["tail_k"] = comp["tail_k"].to(dtype)
         comp["tail_v"] = comp["tail_v"].to(dtype)
         update.append(comp)
@@ -73,17 +74,14 @@ def prefill_compressed_paged(params, tokens: torch.Tensor, cfg, *, plan=None,
 
 
 def decode_step_compressed(params, token: torch.Tensor, cache: kvc.PagedKVCache,
-                           pos, cfg, *, flush_page, attend_blocks=None,
-                           plain: bool = False):
+                           pos, cfg, *, flush_page, attend_blocks=None):
     """One-token decode against the paged compressed pool, in place.
 
     token, pos (B,) on the cache's device; `flush_page[b]` names the page
     the engine reserved for row b's flush THIS step (an id >= P means no
     flush).  The block-table row update happens once here (every layer of
     a slot flushes the same block index).  `attend_blocks` is the decode
-    bucket's table-slice width.  `plain=True` computes the step with the
-    kernels' plain versions on the same device — the oracle the kernel path
-    is held against.  Returns (logits (B, V) f32, cache).
+    bucket's table-slice width.  Returns (logits (B, V) f32, cache).
     """
     assert cfg.attn_type == "gqa", "compressed cache is for GQA families"
     b = token.shape[0]
@@ -113,9 +111,8 @@ def decode_step_compressed(params, token: torch.Tensor, cache: kvc.PagedKVCache,
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k_new, v_new = L.gqa_project_kv(p["attn"], hn, positions, cfg)
             kvc.update_layer(lc, k_new, v_new, pos, seg.keep, flush=flush,
-                             codec=seg.codec, plain=plain)
-            attn = kvc.attend_auto(q, lc, pos, seg.keep, block_table=att_table,
-                                   codec=seg.codec, plain=plain)
+                             codec=seg.codec)
+            attn = fa_ops.attend_with_tail(q, lc, pos, block_table=att_table)
             x = x + L.dense(p["attn"]["wo"], attn.reshape(b, 1, cfg.n_heads * hd))
             x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg)
     return T.unembed(params, x, cfg)[:, 0], cache
@@ -173,7 +170,7 @@ class ServeConfig:
 
 
 def make_steps(api, sc: ServeConfig):
-    """(prefill_fn, decode_fn, cache_init, vec_pos) of the paged branch.
+    """(prefill_fn, decode_fn, cache_init) of the paged branch.
 
     prefill_fn(params, tokens, lengths=None)           -> (logits, update)
     decode_fn(params, token, cache, pos, flush_page,
@@ -202,7 +199,7 @@ def make_steps(api, sc: ServeConfig):
         return kvc.init_paged_cache(cfg, batch, sc.max_seq, n_pages, plan=plan,
                                     device=device)
 
-    return prefill_fn, decode_fn, cache_init, True
+    return prefill_fn, decode_fn, cache_init
 
 
 @dataclass
@@ -239,7 +236,7 @@ class Engine:
     def __init__(self, api, params, sc: ServeConfig, batch: int, *, device=None):
         self.device = resolve_device(device)
         cfg = api.cfg
-        self._prefill_fn, self._decode_fn, self._cache_init, _ = make_steps(api, sc)
+        self._prefill_fn, self._decode_fn, self._cache_init = make_steps(api, sc)
         self.api, self.sc, self.batch = api, sc, batch
         self.plan = sc.resolved_plan()
         self.params = _to_device(params, self.device)

@@ -135,9 +135,14 @@ def test_kernel_layout_plain_version_matches_jax_pallas():
     torch.testing.assert_close(got, tref.attend_paged(*args), rtol=0, atol=0)
 
 
-def test_attend_auto_routes_dct_through_the_fused_op():
-    case = _case(4)
+@pytest.mark.parametrize("backend", ["reference", "pallas"])
+def test_fused_op_matches_jax_attend_auto(backend):
+    """The op the decode step calls for the dct family, against the JAX
+    package's backend-dispatched `attend_auto` over the same paged pool."""
+    case = _case(4, seed=7)
+    jc, jq, jpos, jtab = _jax(*case)
     tc, tq, tpos, ttab = _torch(*case)
-    got = TKV.attend_auto(tq, tc, tpos, 4, block_table=ttab)
-    torch.testing.assert_close(got, tops.attend_with_tail(tq, tc, tpos, block_table=ttab),
-                               rtol=0, atol=0)
+    want = np.asarray(JKV.attend_auto(jq, jc, jpos, 4, backend=backend,
+                                      block_table=jtab, pages_per_tile=2))
+    got = tops.attend_with_tail(tq, tc, tpos, block_table=ttab).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)

@@ -96,8 +96,7 @@ def test_make_steps_serves_one_request_by_hand(lm):
     """The step factory the engine is built on: prefill, splice, decode."""
     _, _, ta, tparams = lm
     sc = TE.ServeConfig(max_seq=32, plan=4, pool_pages=4)
-    prefill_fn, decode_fn, cache_init, vec_pos = TE.make_steps(ta, sc)
-    assert vec_pos
+    prefill_fn, decode_fn, cache_init = TE.make_steps(ta, sc)
     cache = cache_init(1, "cpu")
     toks = torch.arange(16, dtype=torch.int32)[None] % 200
     logits, upd = prefill_fn(tparams, toks, lengths=torch.tensor([12], dtype=torch.int32))

@@ -9,6 +9,8 @@
     kernel build.
 """
 import ast
+import collections
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.codec import dispatch, reference
+from repro_torch.core import kv_cache as TKV
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_attend import kernel as fa_kernel
 from repro_torch.kernels.fused_attend import ref as fa_ref
@@ -83,6 +86,49 @@ def test_attend_wrapper_on_cpu_takes_plain_path():
     args = (pk, sk, pk, sk, q, pos, table, tails, tails)
     assert torch.equal(fa_kernel.attend_paged(*args), fa_ref.attend_paged(*args))
     assert fa_kernel.counter.count == 0
+
+
+def test_crosscheck_oracle_bypasses_both_wrappers(monkeypatch):
+    """`chip_smoke.plain_versions` rebinds the two wrappers that the decode
+    path looks up at call time: a step inside it reaches neither, and the
+    wrappers are bound back afterwards."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    calls = collections.Counter()
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(fc_kernel, "compress_plane", spy("compress", fc_kernel.compress_plane))
+    monkeypatch.setattr(fa_kernel, "attend_paged", spy("attend", fa_kernel.attend_paged))
+    wrappers = (fc_kernel.compress_plane, fa_kernel.attend_paged)
+    api = tapi.build_reduced("yi_6b")
+    params = api.init(torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu")
+    prefill_fn, decode_fn, cache_init = TE.make_steps(
+        api, TE.ServeConfig(max_seq=32, plan=4, pool_pages=4))
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)
+
+    def step():  # a 7-token prompt, then the decode step that flushes page 1
+        cache = cache_init(1, "cpu")
+        toks = (torch.arange(8, dtype=torch.int32)[None] * 7) % 200
+        _, upd = prefill_fn(params, toks, lengths=i32([7]))
+        TKV.paged_write_rows(cache, upd, [0], [[4]], [[0, 0, 0, 0]])
+        logits, _ = decode_fn(params, i32([3]), cache, i32([7]), i32([1]), attend_blocks=1)
+        return logits
+
+    want = step()
+    n_layers = api.cfg.n_layers
+    assert calls == {"compress": 1 + n_layers, "attend": n_layers}
+    calls.clear()
+    with smoke.plain_versions():
+        got = step()
+    assert not calls
+    assert (fc_kernel.compress_plane, fa_kernel.attend_paged) == wrappers
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_dispatch_follows_the_device_and_nothing_else():
